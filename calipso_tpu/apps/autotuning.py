@@ -4,7 +4,7 @@ closed-loop rollout loss.
 Rebuild of the reference application (reference
 examples/autotuning/autotuning.jl:124-170 gradient descent + backtracking;
 cartpole.jl:179-231 policy Jacobians from solution sensitivities). The
-TPU-native version replaces the hand-written chain rule with `jax.grad`
+JAX version replaces the hand-written chain rule with `jax.grad`
 through the differentiable solve (calipso_tpu.solver.diffable), rolls out
 with `lax.scan`, and batches scenario rollouts with `vmap` + mesh sharding
 with psum gradient reductions (the workload SURVEY.md section 3.5 calls

@@ -7,7 +7,7 @@ re-solve a short-horizon trajopt problem every control step, reusing the
 previous primal-dual point via `Options.warmstart` (reference
 options.jl:57, solve.jl:10-13 — initialization is skipped, the previous
 solution is the starting iterate). This module packages that pattern
-TPU-natively: the measured state enters through a stage parameter so ONE
+for one compiled program: the measured state enters through a stage parameter so ONE
 compiled solve program serves every control step, the previous primal-dual
 `Blocks` pytree is the warmstart carry, and the whole closed loop is a
 `lax.scan` — controller and plant both on-device, zero host round-trips.

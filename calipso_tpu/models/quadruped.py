@@ -42,7 +42,7 @@ def foot_positions(q):
     axis (instead of a Python loop of per-foot scalar chains) shrinks
     the dynamics jaxpr ~4x -- and the LAGRANGIAN HESSIAN the solver
     differentiates through it by the cube of that: the batched oracle is
-    op-COUNT-bound, not flop-bound (docs/performance.md budget)."""
+    op-COUNT-bound, not flop-bound."""
     c, s = jnp.cos(q[2]), jnp.sin(q[2])
     R = jnp.array([[c, -s], [s, c]])
     a, r = q[3::2], q[4::2]  # (4,) swing angles / leg lengths

@@ -1,10 +1,10 @@
 """Vectorized cone kernels for K = R+^q x Q_l1 x ... x Q_lj.
 
-TPU-native design: every cone is treated as a second-order cone (a
+Design: every cone is treated as a second-order cone (a
 nonnegative-orthant entry is a 1-dimensional SOC -- identical barrier,
 Jordan product, target and fraction-to-the-boundary formulas), so the whole
-cone program is a single padded (num_cones, max_dim) tensor computation on
-the VPU with zero data-dependent control flow. This replaces the reference's
+cone program is a single padded (num_cones, max_dim) tensor computation
+with zero data-dependent control flow. This replaces the reference's
 per-cone Julia loops (reference src/solver/cones/{cone,nonnegative,
 second_order}.jl) with batched dense ops.
 

@@ -1,6 +1,6 @@
 """Parallel-in-time block cyclic reduction for SPD block-tridiagonal systems.
 
-The TPU-native O(log T)-depth alternative to the serial Riccati sweep
+The O(log T)-depth alternative to the serial Riccati sweep
 (ops/riccati.py) for the stage-block tridiagonal primal Schur complement of
 a trajopt KKT system (SURVEY.md section 2.4 item 3 / section 5: the
 reference's AMD-ordered QDLDL, qdldl.jl:134-188, is inherently serial in
@@ -12,7 +12,7 @@ At each level the odd block rows
     O_{2k} x_{2k} + D_{2k+1} x_{2k+1} + O_{2k+1}^T x_{2k+2} = b_{2k+1}
 
 are eliminated in parallel (one batched Cholesky + batched triangular
-solves + batched matmuls over all odd stages -- MXU work), producing a
+solves + batched matmuls over all odd stages), producing a
 half-size block-tridiagonal system over the even stages:
 
     D'_{2k}   = D_{2k}  - O_{2k}^T  D_{2k+1}^{-1} O_{2k}

@@ -1,6 +1,6 @@
 """Dense unpivoted LDL^T for symmetric quasidefinite systems, with inertia.
 
-TPU-native replacement for the vendored sparse QDLDL (reference
+Dense replacement for the vendored sparse QDLDL (reference
 src/solver/qdldl.jl:1-745): the condensed KKT system is assembled dense with
 static shapes, factorized by an unpivoted LDL^T (valid for quasidefinite
 matrices under any symmetric permutation), and the inertia is read off the
@@ -10,8 +10,8 @@ XLA gets static dense blocks, and structure exploitation happens at the
 block level (trajopt stage-banded solver) rather than the scalar-nnz level.
 
 The factorization loop is a lax.fori_loop of rank-1 updates (each O(n^2),
-vectorized on the VPU); triangular solves use XLA's native blocked
-solve_triangular. A blocked MXU panel variant is the planned fast path for
+vectorized); triangular solves use XLA's native blocked
+solve_triangular. A blocked panel variant is the planned fast path for
 large n.
 """
 

@@ -1,13 +1,14 @@
 """Block-tridiagonal Cholesky over trajectory stages (Riccati sweep).
 
-The TPU-native replacement for sparse LDL^T on stage-banded trajopt KKT
+The dense-block replacement for sparse LDL^T on stage-banded trajopt KKT
 systems (SURVEY.md section 7 step 7; reference relies on AMD-ordered QDLDL,
 qdldl.jl:134-188): the condensed primal Schur complement S of a trajopt
 problem is block-tridiagonal in stage blocks (d_t = nx_t + nu_t), so its
 Cholesky factorization is a lax.scan of T small dense Cholesky +
 triangular-solve + matmul steps -- O(T d^3) work and O(T d^2) memory
-instead of O(n^3)/O(n^2) dense, and every step is a batched MXU-friendly
-block op under vmap.
+instead of O(n^3)/O(n^2) dense. Batched callers vmap these functions:
+XLA lowers the per-stage Cholesky and triangular solves of a vmapped
+scan to batched cuSOLVER/cuBLAS calls on the GPU.
 
 Ragged stage widths are padded to d_max with identity diagonal blocks
 (padded dimensions decouple exactly: unit pivots, zero couplings, zero
@@ -81,203 +82,3 @@ def solve(L, M, b):
 def solve_multi(L, M, B):
     """Solve for multiple right-hand sides B (T, d, k)."""
     return jax.vmap(lambda b: solve(L, M, b), in_axes=2, out_axes=2)(B)
-
-
-# ---- custom-vmap wrappers: batched calls route to the fused Pallas
-# batch-in-lanes kernels on TPU (2.8x the XLA scan; see
-# ops/pallas_riccati.py), everything else falls back to vmap of the scan.
-
-from jax.custom_batching import custom_vmap  # noqa: E402
-
-
-def _use_pallas(axis_size, T, d, dtype, on_tpu=None):
-    """Route to the Pallas kernels only in their measured winning regime
-    (blocks large enough to amortize the lane-formulation overhead,
-    batch wide enough to fill lanes). Measured on a v5e with the
-    marginal-K methodology (bench.py): the T=1 dense (schur)
-    factorization at B=2048, n=32 runs 2462 GFLOP/s -- ~22x the round-3
-    masked kernels and far above the XLA batched-Cholesky custom-call;
-    end-to-end batched rocket T=31 B=128 is ~1.16x the XLA scan
-    (BENCH_r04 rocket_batch_pallas_speedup). Batches whose VMEM
-    footprint exceeds one block run the manual-DMA T-streaming kernels
-    (640 GFLOP/s at B=256, T=8, d=54). Default ON;
-    CALIPSO_PALLAS_RICCATI=0 disables all Pallas routing and
-    CALIPSO_PALLAS_STREAM=0 fences just the streaming route."""
-    import os
-
-    if os.environ.get("CALIPSO_PALLAS_RICCATI", "1") != "1":
-        return None
-    if on_tpu is None:
-        try:
-            on_tpu = jax.devices()[0].platform == "tpu"
-        except Exception:  # pragma: no cover
-            on_tpu = False
-    if not (
-        on_tpu
-        and T >= 1
-        and (d >= 6 if T > 1 else d >= 8)
-        and axis_size >= 32
-        and dtype == jnp.float32
-    ):
-        return None
-    # pick the largest lanes tile whose VMEM footprint fits the RAISED
-    # 96 MB Mosaic scoped-VMEM limit (pallas_riccati._compiler_params)
-    # with margin -- the fits()/fits_stream() budgets below test against
-    # 60 MB: 4 grid-streamed buffers, double-buffered by Mosaic, plus ~2
-    # buffer-sized loop temporaries -> ~10x one buffer's bytes. A
-    # "resident" tile holds the whole (T, d, d, Bt) horizon in VMEM; when
-    # no tile fits, the T-streaming kernels ("stream",
-    # pallas_riccati.*_stream) stream (d, d, Bt) stage blocks through a
-    # manual double-buffered DMA pipeline. Round 3's stream formulation
-    # (grid (B/Bt, T) with a cross-grid-step scratch carry) hung/faulted
-    # the device when the pallas_call sat inside a lax.while_loop
-    # (BENCH_r03 quadruped_error; isolated repro: fori composition OK,
-    # while hangs) and was fenced off; the round-4 single-grid manual-DMA
-    # rewrite passes that exact composition AND the full batched-quadruped
-    # solver nest on TPU (128/128 converged), so the stream route is ON
-    # by default again. CALIPSO_PALLAS_STREAM=0 disables just the stream
-    # route; CALIPSO_PALLAS_RICCATI=0 disables all Pallas routing. Mosaic
-    # requires lane-axis blocks to be multiples of 128 (or the whole
-    # axis), so partial tiles below 128 are only usable when they cover
-    # the full batch. Returns (mode, tile) or None for the XLA fallback.
-    def fits(tile, steps):
-        # ~10 buffer-sized allocations against the raised 96 MB Mosaic
-        # scoped-VMEM limit (pallas_riccati._compiler_params), with margin
-        return 10 * tile * steps * d * d * dtype.itemsize < 60 * 2**20
-
-    for tile in (2048, 1024, 512, 256, 128):
-        if axis_size % tile == 0 and fits(tile, T):
-            return ("resident", tile)
-    if axis_size < 128 and fits(axis_size, T):
-        return ("resident", axis_size)
-    if os.environ.get("CALIPSO_PALLAS_STREAM", "1") != "1":
-        return None
-    # stream buffers: 2x double-buffered 2-STAGE chunks (C=2, round 5)
-    # for each of the ~4 streams + substitution scratch -> 17 blocks +
-    # margin
-    def fits_stream(tile):
-        return 18 * tile * d * d * dtype.itemsize < 60 * 2**20
-
-    for tile in (512, 256, 128):
-        if axis_size % tile == 0 and fits_stream(tile):
-            return ("stream", tile)
-    if axis_size < 128 and fits_stream(axis_size):
-        return ("stream", axis_size)
-    return None
-
-
-def _bcast(x, batched, axis_size):
-    return x if batched else jnp.broadcast_to(x[None], (axis_size,) + x.shape)
-
-
-@custom_vmap
-def factor_cv(D, O):
-    return factor(D, O)
-
-
-@factor_cv.def_vmap
-def _factor_vmap(axis_size, in_batched, D, O):
-    D = _bcast(D, in_batched[0], axis_size)
-    O = _bcast(O, in_batched[1], axis_size)
-    route = _use_pallas(axis_size, D.shape[1], D.shape[2], D.dtype)
-    if route:
-        from calipso_tpu.ops import pallas_riccati as pr
-
-        mode, tile = route
-        if mode == "stream":
-            out = pr.factor_lanes_stream(D, O, batch_tile=tile)
-        else:
-            out = pr.factor_lanes(D, O, batch_tile=tile)
-    else:
-        out = jax.vmap(factor)(D, O)
-    return out, (True, True)
-
-
-@custom_vmap
-def solve_cv(L, M, b):
-    return solve(L, M, b)
-
-
-@custom_vmap
-def chol_cv(S):
-    """Dense lower Cholesky whose BATCHED form routes to the Pallas lanes
-    kernel (the T=1 case of the Riccati factorization). The XLA batched
-    `Cholesky` custom-call is the single hottest op of a batched schur
-    solve on TPU (measured 6.9 ms per (2048, 32, 32) call on a v5e, ~40%
-    of the whole flagship solve); the lanes kernel does the same
-    factorization in VMEM across the lane axis."""
-    return jnp.linalg.cholesky(S)
-
-
-@chol_cv.def_vmap
-def _chol_vmap(axis_size, in_batched, S):
-    S = _bcast(S, in_batched[0], axis_size)
-    n = S.shape[-1]
-    route = _use_pallas(axis_size, 1, n, S.dtype)
-    # only the resident lanes kernel implements the T=1 dense case; a
-    # ("stream", tile) route (unreachable today at T=1 but possible if
-    # the tile lists / fit thresholds change) falls back to XLA
-    if route and route[0] == "resident":
-        from calipso_tpu.ops import pallas_riccati as pr
-
-        L, _ = pr.factor_lanes(
-            S[:, None], jnp.zeros((axis_size, 0, n, n), S.dtype), batch_tile=route[1]
-        )
-        out = L[:, 0]
-    else:
-        out = jnp.linalg.cholesky(S)
-    return out, True
-
-
-@custom_vmap
-def chol_solve_cv(L, b):
-    """Solve L L' x = b for one right-hand side; batched form rides the
-    Pallas lanes substitution kernel (T=1)."""
-    y = jax.scipy.linalg.solve_triangular(L, b[:, None], lower=True)
-    x = jax.scipy.linalg.solve_triangular(L, y, lower=True, trans="T")
-    return x[:, 0]
-
-
-@chol_solve_cv.def_vmap
-def _chol_solve_vmap(axis_size, in_batched, L, b):
-    L = _bcast(L, in_batched[0], axis_size)
-    b = _bcast(b, in_batched[1], axis_size)
-    n = L.shape[-1]
-    route = _use_pallas(axis_size, 1, n, L.dtype)
-    # resident-only, like _chol_vmap
-    if route and route[0] == "resident":
-        from calipso_tpu.ops import pallas_riccati as pr
-
-        x = pr.solve_lanes(
-            L[:, None],
-            jnp.zeros((axis_size, 0, n, n), L.dtype),
-            b[:, None],
-            batch_tile=route[1],
-        )[:, 0]
-    else:
-
-        def one(Li, bi):
-            y = jax.scipy.linalg.solve_triangular(Li, bi[:, None], lower=True)
-            return jax.scipy.linalg.solve_triangular(Li, y, lower=True, trans="T")[:, 0]
-
-        x = jax.vmap(one)(L, b)
-    return x, True
-
-
-@solve_cv.def_vmap
-def _solve_vmap(axis_size, in_batched, L, M, b):
-    L = _bcast(L, in_batched[0], axis_size)
-    M = _bcast(M, in_batched[1], axis_size)
-    b = _bcast(b, in_batched[2], axis_size)
-    route = _use_pallas(axis_size, L.shape[1], L.shape[2], L.dtype)
-    if route:
-        from calipso_tpu.ops import pallas_riccati as pr
-
-        mode, tile = route
-        if mode == "stream":
-            out = pr.solve_lanes_stream(L, M, b, batch_tile=tile)
-        else:
-            out = pr.solve_lanes(L, M, b, batch_tile=tile)
-    else:
-        out = jax.vmap(solve)(L, M, b)
-    return out, True

@@ -14,13 +14,13 @@ tridiagonal system with partitioned Schur-complement elimination
      sides are the boundary couplings;
   3. the P separators form a tiny P-block tridiagonal Schur system whose
      per-chunk contributions are `all_gather`ed (P d x d blocks -- a few
-     KB over ICI) and solved redundantly on every device;
+     KB between devices) and solved redundantly on every device;
   4. each device back-substitutes its interior locally:
      x_i = A^{-1} r  -  (A^{-1}E) x_{sep,p-1}  -  (A^{-1}F') x_{sep,p}.
 
 Work per device O((T/P) d^3), one all_gather of O(P d^2): weak-scales the
-horizon across ICI. The reference has no analogue (single-threaded QDLDL,
-qdldl.jl:400-589); this is the TPU-native invention the survey calls
+horizon across devices. The reference has no analogue (single-threaded QDLDL,
+qdldl.jl:400-589); this is the invention the survey calls
 "horizon sharding across chips with boundary exchange".
 
 Coupling convention: `Oin[t]` is the block at (row t, col t-1) -- the
@@ -127,26 +127,13 @@ def _smap(f, mesh, axis, in_specs, out_specs):
     from jax.sharding import PartitionSpec as Pspec
 
     spec = lambda s: Pspec(axis) if s else Pspec()
-    try:
-        from jax import shard_map
-
-        return shard_map(
-            f,
-            mesh=mesh,
-            in_specs=tuple(spec(s) for s in in_specs),
-            out_specs=jax.tree.map(spec, out_specs),
-            check_vma=False,
-        )
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map as _sm
-
-        return _sm(
-            f,
-            mesh=mesh,
-            in_specs=tuple(spec(s) for s in in_specs),
-            out_specs=jax.tree.map(spec, out_specs),
-            check_rep=False,
-        )
+    return jax.shard_map(
+        f,
+        mesh=mesh,
+        in_specs=tuple(spec(s) for s in in_specs),
+        out_specs=jax.tree.map(spec, out_specs),
+        check_vma=False,
+    )
 
 
 def _check_split(T, P):

@@ -108,15 +108,15 @@ class Options:
     #   "auto"    -> "riccati" for trajopt problems with more than ~96
     #                variables (general equality rows ride the low-rank
     #                border), else "schur" (one dense Cholesky of the
-    #                (n, n) primal Schur complement beats the T-step
-    #                Riccati scan for small n; measured crossover n ~ 90
-    #                on a v5e)
+    #                (n, n) primal Schur complement is taken to beat the
+    #                T-step Riccati scan for small n; the crossover is
+    #                not measured on the H100)
     #   "riccati" -> block-tridiagonal Cholesky over stage blocks
     #                (lax.scan Riccati sweep; O(T d^3) per factorization)
     #   "cr"      -> parallel-in-time block cyclic reduction over stages
     #                (O(log T) depth; long-horizon trajopt)
-    #   "schur"   -> primal Schur-complement dense Cholesky (MXU path,
-    #                ~70x faster than ldl on a T=61 rocket)
+    #   "schur"   -> primal Schur-complement dense Cholesky (the dense
+    #                fast path; ldl's rank-1 loop is far slower)
     #   "ldl"     -> dense unpivoted LDL^T of the condensed quasidefinite
     #                system; exact inertia from sign(D) (QDLDL analogue)
     #   "lu"      -> dense LU of the full 6-block system (the reference's
@@ -125,19 +125,19 @@ class Options:
     #                mesh (ops/spike.py): set spike_mesh (+ spike_axis) to
     #                a jax.sharding.Mesh whose axis divides the horizon
     #                into chunks of >= 2 stages. For single solves whose
-    #                horizon outgrows one chip.
+    #                horizon outgrows one device.
     linear_solver: str = "auto"
     spike_mesh: object = None  # jax.sharding.Mesh (trace-time static)
     spike_axis: str = "horizon"
 
     # line-search execution mode. The reference's backtracking loops
     # (solve.jl:193-221 cone search, :252-302 filter search) are serial:
-    # each trial evaluates the cone violation / the full (f, g, h). On TPU
-    # the same semantics run as ONE batched evaluation of every candidate
-    # step size 0.5^k followed by a first-accepted select -- no
+    # each trial evaluates the cone violation / the full (f, g, h). On an
+    # accelerator the same semantics run as ONE batched evaluation of every
+    # candidate step size 0.5^k followed by a first-accepted select -- no
     # data-dependent loop, so vmapped solves stay out of lockstep stalls
     # and the serial dependency chain per Newton step collapses.
-    #   "auto"     -> "parallel" on TPU/GPU, "serial" on CPU
+    #   "auto"     -> "parallel" on an accelerator, "serial" on CPU
     #   "serial"   -> reference-shaped masked while_loops
     #   "parallel" -> batched candidate evaluation (identical accept rule)
     line_search_mode: str = "auto"
@@ -159,10 +159,10 @@ class Options:
     # max_residual_iterations + 2 always suffices (reference filter.jl)
     max_filter: int = 102
 
-    # matmul precision for everything traced inside the solve; TPUs
-    # default f32 matmuls to bfloat16 passes, which wrecks the chained
-    # factorizations (riccati sweeps especially) -- "highest" restores
-    # true-f32 accumulation on the MXU
+    # matmul precision for everything traced inside the solve: GPUs may
+    # run f32 matmuls in TF32 (about three decimal digits), which wrecks
+    # the chained factorizations (riccati sweeps especially) -- "highest"
+    # keeps true f32
     matmul_precision: str = "highest"
 
     # host-side verbose printing via jax.debug.callback (off inside vmap);

@@ -1,12 +1,12 @@
 """Scenario/batch data parallelism: vmap whole solves, shard over meshes.
 
 The reference is single-process/single-threaded (SURVEY.md section 2.4);
-batched and sharded solving is new TPU-native capability:
+batched and sharded solving is a new capability:
   * vmap: one XLA program runs B independent solves in lockstep; finished
     lanes are masked no-ops inside the while_loops.
-  * shard_map/pjit over a Mesh axis: the batch axis spreads across chips,
-    collectives ride ICI (nothing to communicate during independent solves;
-    reductions appear in autotuning losses downstream).
+  * sharding over a Mesh axis: the batch axis spreads across devices, and
+    collectives go over NVLink/NCCL on GPUs (nothing to communicate during
+    independent solves; reductions appear in autotuning losses downstream).
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ class BatchedSolver:
 
 class BatchedTrajOptSolver:
     """vmap/shard whole trajopt solves over a scenario batch -- the
-    flagship TPU workload (one XLA program runs B independent AL-IPM
+    flagship workload (one XLA program runs B independent AL-IPM
     solves in lockstep; a mesh spreads the batch over chips with nothing
     to communicate during the solves).
 
@@ -127,7 +127,7 @@ class BatchedTrajOptSolver:
 
     # ---- ahead-of-time program cache (utils/aot.py) ----------------------
     # Tracing the batched contact-class program costs minutes of pure
-    # Python (docs/performance.md "Cold-start anatomy"); these serialize
+    # Python; these serialize
     # the traced program so a later process skips tracing entirely and
     # goes straight to the (persistently cached) XLA compile.
 
@@ -135,8 +135,8 @@ class BatchedTrajOptSolver:
         import numpy as np
 
         n = int(np.size(self._ts._guess))
-        g = jnp.asarray(self._ts._guess)  # natural dtype (f32 on TPU,
-        # f64 under the CPU x64 config) so the exported program matches
+        g = jnp.asarray(self._ts._guess)  # natural dtype (f32 by default,
+        # f64 under the x64 config) so the exported program matches
         # what solve() will dispatch
         guess_b = jnp.broadcast_to(g, (batch_size, n))
         p = self.fns.dims.parameters if num_parameters is None else num_parameters

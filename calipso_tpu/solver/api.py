@@ -70,7 +70,7 @@ def _print_banner(dims, opts):
     """Solve banner (reference print.jl:1-18 solver_info; repo identity +
     problem dimensions instead of the reference's ASCII art)."""
     print("-" * 72)
-    print("CALIPSO-TPU  conic augmented-Lagrangian interior-point solver (JAX)")
+    print("calipso_tpu  conic augmented-Lagrangian interior-point solver (JAX)")
     print(
         f"variables {dims.variables}  equality {dims.equality}  cone {dims.cone}"
         f"  parameters {dims.parameters}"

@@ -5,7 +5,7 @@ src/solver/differentiate.jl:1-61, residual_jacobian_parameters.jl:1-40).
 The reference solves one column per parameter in a Python-style loop
 (flagged "#TODO parallelize", differentiate.jl:28); here all parameter
 columns go through the factorization as one batched triangular solve and
-the expansion formulas are vmapped over columns -- the natural TPU shape.
+the expansion formulas are vmapped over columns -- one batched op instead of a loop.
 
 dR/dtheta rows (zero for the slack rows r, s, t):
   variables:      fxt + d/dtheta grad_x(g'y) + d/dtheta grad_x(h'z)

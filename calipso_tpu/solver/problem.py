@@ -6,7 +6,7 @@ Symbolics tracing user functions into sparse derivative callbacks, the user
 supplies plain JAX-traceable Python callables and every derivative the
 AL-IPM needs is a jax.grad / jacfwd / hessian transform, compiled (and
 fused) by XLA inside the solve program. Sparsity handling disappears:
-problems are dense-per-block with static shapes (the TPU-native choice);
+problems are dense-per-block with static shapes (the accelerator-friendly choice);
 structure exploitation lives at the block level in the trajopt front-end.
 
 Callback inventory mirrored from ProblemMethods (reference methods.jl:1-41):

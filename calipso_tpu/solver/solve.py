@@ -7,7 +7,7 @@ the inner loop takes inertia-corrected Newton steps on the 6-block KKT
 residual, globalized by a fraction-to-the-boundary cone search plus an
 Ipopt-style filter line search.
 
-TPU-native differences from the reference:
+Differences from the reference:
   * the whole solve is a nest of lax.while_loops -- no Python control flow
     touches traced values, so solves jit, vmap and shard;
   * failures (cone line-search overflow solve.jl:210, inertia overflow
@@ -36,15 +36,12 @@ def resolve_options(opts, fns):
     """Resolve linear_solver='auto': riccati for large trajopt problems
     (general equality rows ride the low-rank border), dense Schur
     otherwise. Small trajopt problems also take the dense path: one
-    batched Cholesky of the (n, n) primal Schur complement beats the
-    T-step Riccati scan until n ~ 90 on a v5e (measured crossover on the
-    batched pendulum family: schur 2.8x at n=32, 1.7x at n=62, riccati
-    1.2x at n=122, 1.4x at n=242)."""
+    batched Cholesky of the (n, n) primal Schur complement is taken to
+    beat the T-step Riccati scan up to n = 96 (a crossover not yet
+    measured on the H100)."""
     if opts.line_search_mode == "auto":
         opts = opts.replace(
-            line_search_mode=(
-                "parallel" if jax.default_backend() in ("tpu", "gpu") else "serial"
-            )
+            line_search_mode="serial" if jax.default_backend() == "cpu" else "parallel"
         )
     if opts.linear_solver != "auto":
         return opts
@@ -86,7 +83,7 @@ class State(NamedTuple):
     # cost-accounting counters (round 5): total inertia-ladder
     # re-factorizations, refinement correction trips, and line-search
     # chunk evaluations across the solve -- the per-iteration
-    # multiplicities that close the docs/performance.md budget. (No
+    # multiplicities of a per-iteration time budget. (No
     # default values: a jnp default at class-definition time would
     # initialize the backend at import, breaking the documented
     # set-platform-before-first-use CPU recipe.)
@@ -231,22 +228,6 @@ def _row_printer(j, i, r, o, sl, e, c, k, p, a, ep, ed):
     )
 
 
-def _can_print_rows():
-    """In-jit iteration rows need host callbacks; some tunneled PJRT
-    runtimes lack them -- degrade to banner + final summary only."""
-    from calipso_tpu.utils.platform import host_callbacks_supported
-
-    if host_callbacks_supported():
-        return True
-    import warnings
-
-    warnings.warn(
-        "verbose iteration rows disabled: this JAX runtime does not support "
-        "host callbacks inside jit (banner and final summary still print)"
-    )
-    return False
-
-
 # ---- solver construction ----------------------------------------------------
 
 
@@ -319,17 +300,13 @@ def make_solve(fns, layout, opts, callbacks=None):
     # structured backends consume the Lagrangian Hessian directly in
     # stage-block tridiagonal form (kkt.BandHessian): no dense (n, n)
     # Hessian is ever materialized -- O(T d^2) memory per lane and no
-    # elementwise scatter assembly (round-3 verdict next-round #2)
+    # elementwise scatter assembly
     use_band_hessian = (
         opts.linear_solver in ("riccati", "cr", "spike")
         and structure is not None
         and getattr(fns, "_block_maps", None) is not None
         and fns._block_maps() is not None
     )
-    # evaluate the runtime probe OUTSIDE any trace: running a jitted probe
-    # while inner_body is being traced leaks the probe's callback effect
-    # into the traced while-loop body
-    verbose_rows = opts.verbose and _can_print_rows()
 
     def merit_value(f, r, barrier_val, kappa, lam, rho):
         """AL + barrier merit M = f + lam'r + rho/2 |r|^2 - kappa*Phi
@@ -762,7 +739,7 @@ def make_solve(fns, layout, opts, callbacks=None):
             equality_violation=equality_violation,
             cone_product_violation=cone_product_violation,
         )
-        if verbose_rows:
+        if opts.verbose:
             # host-side iteration telemetry every print_frequency inner
             # iterations (reference print.jl:20-53, options.jl:54)
             def _print_row(s):

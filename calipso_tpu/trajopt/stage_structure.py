@@ -80,9 +80,8 @@ class StageStructure:
         """Stage-block tridiagonal (D (T,dmax,dmax), O (T-1,dmax,dmax)) ->
         dense symmetric (n, n). Placement is T static dynamic-update-slice
         writes (stage column ranges are contiguous and disjoint), NOT an
-        elementwise scatter -- XLA lowers these natively (the scatter
-        formulation costs 1-3 ms per batched (2048, 33, 33) write on a
-        v5e; see docs/performance.md)."""
+        elementwise scatter -- XLA lowers these natively, while an
+        elementwise scatter serializes its updates."""
         import jax.lax as lax
 
         n = self.num_variables

@@ -12,7 +12,7 @@ dense block matrices with static index tables (reference
 indices.jl/sparsity.jl play this role for the sparse assembler).
 
 Tracing cost: O(#groups). Evaluation cost: O(T) stage-local work, batched
-on the VPU/MXU. The dense downstream solver is unchanged; the block-sparse
+under vmap. The dense downstream solver is unchanged; the block-sparse
 KKT backend consumes the same stage tables.
 """
 
@@ -71,10 +71,9 @@ def _onehot(idx, size):
     """(..., k) static int indices -> (..., k, size + 1) 0/1 float matrix;
     the sentinel index == size maps to the extra trailing slot (dropped by
     the caller's [:size] slice). Used to turn static-index scatter-adds
-    into einsum contractions: XLA TPU lowers scatter to slow serialized
-    custom fusions (measured 1-3 ms per (2048, 33, 33) Hessian scatter on
-    a v5e -- over half the whole batched solve), while the equivalent
-    one-hot contraction is a sub-0.1 ms MXU matmul. Exact: multipliers
+    into einsum contractions: an elementwise scatter serializes its
+    updates, while the equivalent one-hot contraction is one dense
+    matmul (the speed ratio was not measured on the H100). Exact: multipliers
     are 0/1 and partial sums are adds of distinct scatter contributions."""
     idx = np.asarray(idx)
     out = np.zeros(idx.shape + (size + 1,), np.float32)
@@ -130,9 +129,8 @@ class StructuredProblemFunctions:
 
         # row-tiling flags: when the groups' row spans (in group order,
         # general rows last) exactly tile [0, m), constraint values and
-        # Jacobians assemble by CONCATENATION -- no scatter at all (XLA
-        # TPU lowers elementwise scatter to serialized custom fusions;
-        # docs/performance.md). Holds by construction for trajopt
+        # Jacobians assemble by CONCATENATION -- no scatter at all (an
+        # elementwise scatter serializes its updates). Holds by construction for trajopt
         # transcriptions (dynamics rows, then per-stage rows in stage
         # order, then general); verified here, scatter fallback otherwise.
         def _rows_order(groups, m, general_rows):
@@ -233,10 +231,9 @@ class StructuredProblemFunctions:
         # closed-jaxpr call: the contact-class solve program inlined the
         # grouped hessian/jacfwd transforms at every call site
         # (residual, line-search chunk, oracle, refinement), producing a
-        # ~1.4M-primitive jaxpr whose trace took 126 s and whose vmap
-        # RE-batching another ~244 s (cProfile, d=54 B=128) -- the
-        # "compile wall" of BENCH_r04 was in fact a TRACE wall that the
-        # persistent XLA cache can never absorb. With pjit-call dedup the
+        # ~1.4M-primitive jaxpr whose tracing and vmap re-batching took
+        # minutes of host time (cProfile, d=54 B=128) -- a TRACE wall that
+        # the persistent XLA cache can never absorb. With pjit-call dedup the
         # body is traced and batched once per evaluator; XLA inlines the
         # calls again during optimization, so the compiled code is
         # unchanged. lagrangian_hessian_blocks/_xx take constraint_tensor
@@ -345,7 +342,7 @@ class StructuredProblemFunctions:
             if maps is not None and not use_es:
                 # concat assembly: the groups' rows exactly cover [0, m),
                 # so each group's (G, r, w) Jacobian is column-placed by
-                # a one-hot contraction (an MXU matmul) and row-placed by
+                # a one-hot contraction (a matmul) and row-placed by
                 # concatenation (+ a static row-permutation gather when
                 # the concat order is not row order) -- zero scatters
                 parts = []
@@ -532,9 +529,8 @@ class StructuredProblemFunctions:
 
     def lagrangian_hessian_xx(self, x, theta, y, z, constraint_tensor=True):
         if self._block_maps() is not None:
-            # blocks + T static dynamic-update-slice writes: measured far
-            # cheaper on TPU than the elementwise (n, n) scatter-adds
-            # (docs/performance.md round-3 "54% scatter assembly")
+            # blocks + T static dynamic-update-slice writes instead of
+            # elementwise (n, n) scatter-adds, which serialize
             D, O, Hgen = self.lagrangian_hessian_blocks(
                 x, theta, y, z, constraint_tensor
             )
@@ -554,10 +550,9 @@ class StructuredProblemFunctions:
     # stages) plus a rare dense remainder from equality_general. Building
     # the (T, dmax, dmax) diagonal/coupling blocks directly from the
     # grouped per-stage Hessians -- pad + one-hot stage contraction, no
-    # elementwise scatter, no dense (n, n) intermediate -- removes the
-    # round-3 flagship bottleneck (54% of device time in scatter assembly)
-    # and the O(n^2)-per-lane memory wall of the structured backends
-    # (round-3 verdict next-round #2).
+    # elementwise scatter, no dense (n, n) intermediate -- no serialized
+    # scatter assembly and no O(n^2)-per-lane memory wall in the
+    # structured backends.
 
     def _block_maps(self):
         """Per-group static placement maps (t_idx, Q0, Q1), computed once.

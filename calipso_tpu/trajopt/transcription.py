@@ -1,8 +1,8 @@
 """Stagewise trajectory optimization -> standard conic NLP transcription.
 
 Rebuild of the reference front-end (reference
-src/trajectory_optimization/solver.jl:1-127, dynamics.jl:333-356) the TPU
-way: the stage structure is kept as Python lists of callables at trace
+src/trajectory_optimization/solver.jl:1-127, dynamics.jl:333-356) for
+JAX: the stage structure is kept as Python lists of callables at trace
 time; the flat variable vector uses the same interleaved
 [x_1, u_1, x_2, u_2, ..., x_T] ordering; all derivatives come from JAX
 autodiff of the assembled flat functions (XLA fuses and de-duplicates the

@@ -1,5 +1,5 @@
 """Profiling helpers (SURVEY.md section 5: the reference's only runtime
-introspection is console telemetry; the TPU build gets jax.profiler
+introspection is console telemetry; this build gets jax.profiler
 traces plus the per-iteration metrics already carried in the solve state
 and exposed via Options.verbose / Solver.callbacks)."""
 

@@ -14,8 +14,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-if jax.devices()[0].platform != "tpu":
-    jax.config.update("jax_enable_x64", True)
+# float64 on every platform: the examples run at the reference's f64
+# tolerances
+jax.config.update("jax_enable_x64", True)
 
 from calipso_tpu import TrajOptSolver, Options
 from calipso_tpu.apps import autotuning

@@ -1,9 +1,12 @@
 """Ahead-of-time traced-program cache (utils/aot.py): the contact-class
-cold start is dominated by Python tracing (docs/performance.md
-"Cold-start anatomy"), which jax.export serialization skips entirely on
-a warm run."""
+cold start has a large Python tracing part, which jax.export
+serialization skips entirely on a warm run."""
+
+import os
+import shutil
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from calipso_tpu import TrajOptSolver, Options
@@ -60,7 +63,7 @@ def test_aot_save_load_round_trip(tmp_path):
 def test_cached_batched_key_changes_with_fingerprint(tmp_path, monkeypatch):
     from calipso_tpu.utils import aot
 
-    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     ts = _pendulum()
     bts = ts.batched()
     B = 4
@@ -71,6 +74,7 @@ def test_cached_batched_key_changes_with_fingerprint(tmp_path, monkeypatch):
     assert cached2  # hit
     fn3, cached3 = aot.cached_batched(bts._batched, "t", "fp-b", *args)
     assert not cached3  # different fingerprint -> different key
+    assert len(os.listdir(tmp_path / "aot")) == 2  # under the cache root
     rng = np.random.default_rng(1)
     guess = args[0]
     th = jnp.asarray(0.2 * rng.normal(size=(B, 2)), guess.dtype)
@@ -79,6 +83,57 @@ def test_cached_batched_key_changes_with_fingerprint(tmp_path, monkeypatch):
     np.testing.assert_allclose(
         np.asarray(r1.state.p.x), np.asarray(r2.state.p.x), rtol=1e-6, atol=1e-8
     )
+
+
+def test_cached_batched_without_serialization(tmp_path, monkeypatch):
+    """Where jax.export cannot serialize (no flatbuffers package), the
+    traced program still runs and nothing is written."""
+    from calipso_tpu.utils import aot
+
+    def no_flatbuffers(self, *a, **k):
+        raise ImportError("Please install 'flatbuffers'")
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(jax.export.Exported, "serialize", no_flatbuffers)
+    bts = _pendulum().batched()
+    args = bts._example_args(4)
+    fn, cached = aot.cached_batched(bts._batched, "t", "fp", *args)
+    assert not cached and os.listdir(tmp_path / "aot") == []
+    th = jnp.asarray(0.2 * np.random.default_rng(2).normal(size=(4, 2)), args[0].dtype)
+    np.testing.assert_allclose(
+        np.asarray(fn(args[0], th).state.p.x),
+        np.asarray(bts._batched(args[0], th).state.p.x),
+        rtol=1e-6, atol=1e-8,
+    )
+
+
+def test_cache_key_changes_with_backend_and_x64(monkeypatch):
+    """A program exported for one platform or dtype mode is never served
+    to another: the key covers the backend and x64."""
+    from calipso_tpu.utils import aot
+
+    k64 = aot.cache_key("fp")
+    assert aot.cache_key("fp") == k64
+    with jax.enable_x64(False):
+        assert aot.cache_key("fp") != k64
+    monkeypatch.setattr(aot.jax, "default_backend", lambda: "gpu")
+    assert aot.cache_key("fp") != k64
+
+
+def test_package_hash_ignores_checkout_path(tmp_path):
+    """The key hashes source paths relative to the package, so two
+    checkouts of the same code at different paths share cache entries,
+    and a changed source file changes the key."""
+    from calipso_tpu.utils import aot
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(aot.__file__)))
+    a, b = tmp_path / "a" / "calipso_tpu", tmp_path / "elsewhere" / "calipso_tpu"
+    for dst in (a, b):
+        shutil.copytree(pkg, dst, ignore=shutil.ignore_patterns("__pycache__"))
+    assert aot._package_hash(str(a)) == aot._package_hash(str(b))
+    with open(b / "options.py", "a") as f:
+        f.write("\n# edit\n")
+    assert aot._package_hash(str(a)) != aot._package_hash(str(b))
 
 
 def test_batched_solver_aot_round_trip(tmp_path):

@@ -1,4 +1,4 @@
-"""Linear-solver backend equivalence: the MXU-fast Schur-Cholesky path must
+"""Linear-solver backend equivalence: the dense Schur-Cholesky path must
 reproduce the reference-faithful dense-LDL path on the convergence
 contract."""
 

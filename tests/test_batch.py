@@ -1,5 +1,5 @@
 """Batched + sharded solving: vmap over scenarios and shard_map over the
-8-device virtual CPU mesh (new TPU-native capability; the reference is
+8-device virtual CPU mesh (a new capability; the reference is
 single-process, SURVEY.md section 2.4)."""
 
 import numpy as np
@@ -58,8 +58,8 @@ def _swingup_trajopt(**opt_kw):
         if k not in ("state_guess", "state_initial", "state_goal")
     }
     # pin riccati: these tests exercise the structured backend under
-    # vmap/sharding ('auto' resolves small-n trajopt to schur since the
-    # measured n<=96 crossover, solve.py resolve_options)
+    # vmap/sharding ('auto' resolves small-n trajopt to schur below the
+    # n<=96 crossover, solve.py resolve_options)
     ts = TrajOptSolver(options=Options(linear_solver="riccati", **opt_kw), **kw)
     assert ts.solver.options.linear_solver == "riccati"
     xg = np.array([np.pi, 0.0])

@@ -78,7 +78,7 @@ def test_quadruped_gait_v2():
     # reference examples/contact_implicit/quadruped_gait_v2.jl: mirrored
     # half-cycle gait (leg-pair permutation `perm`) with a foot-pinning
     # stance phase; the mirror periodicity + travel ride the same 11-row
-    # equality_general border as gait_problem (round-3 verdict weak #6)
+    # equality_general border as gait_problem
     from calipso_tpu.models import quadruped
 
     prob = quadruped.gait_problem_v2(horizon=11, travel=0.2, t_fix=4)

@@ -1,4 +1,4 @@
-"""Golden-trajectory regression tests (VERDICT r1 item 8).
+"""Golden-trajectory regression tests.
 
 The reference pins quadruped_gait against a stored solution
 (test/examples/quadruped_gait.jld2, runtests.jl:40-41); here f64 CPU
@@ -52,7 +52,7 @@ def _states(ts, z):
 
 
 def _iteration_band(r, gold, band=0.15):
-    """Iteration-count stability band (round-4 verdict next-round #6):
+    """Iteration-count stability band:
     total inner iterations must land within +-15% of the stored golden
     count, so ulp-level refactors that silently shift the f32/f64
     iteration budget (the 122 -> 150 hopper jump of round 4) fail a test
@@ -125,7 +125,7 @@ def test_golden_quadruped_gait():
 @pytest.mark.heavy
 def test_golden_quadruped_gait_v2():
     # mirror gait pinned against a stored trajectory, like the reference's
-    # quadruped_mirror_gait.jld2 (round-3 verdict weak #6 / next-round #7)
+    # quadruped_mirror_gait.jld2
     from calipso_tpu.models import quadruped
 
     gold = np.load(os.path.join(GOLDEN, "quadruped_gait_v2.npz"))

@@ -144,8 +144,8 @@ def test_matvec_matches_dense(setup):
 def test_refinement_reduces_error_f32(setup):
     """Iterative refinement against the exact 6-block operator shrinks the
     f32 factorization/condensation error monotonically below tolerance
-    (reference problem.jl:206-211, iterative_refinement.jl:1-53). f32 is
-    the TPU case the mechanism exists for."""
+    (reference problem.jl:206-211, iterative_refinement.jl:1-53). f32 on
+    the accelerator is the case the mechanism exists for."""
     fns, layout, point, kappa, rho, lam, eps_p, eps_d, c = setup
     pt = Blocks(*(v.astype(jnp.float32) for v in point))
     res64 = eval_residual(fns, layout, point, kappa, rho, lam)

@@ -2,7 +2,9 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
+import chip_smoke
 from calipso_tpu.ops import riccati
 
 
@@ -74,3 +76,30 @@ def test_multi_rhs():
     X = np.asarray(riccati.solve_multi(L, M, jnp.asarray(B)))
     want = np.linalg.solve(S, B.reshape(T * d, 4)).reshape(T, d, 4)
     np.testing.assert_allclose(X, want, atol=1e-9)
+
+
+@pytest.mark.parametrize("B, T, d", chip_smoke.FACTOR_SHAPES)
+def test_batched_factor_solve_matches_dense(B, T, d):
+    """The batched factorization route (vmap of the dense Cholesky at T=1,
+    of the Riccati sweep otherwise) at the shapes of the benchmark cells,
+    against float64 residuals and a dense float64 NumPy solve."""
+    x, rel = chip_smoke.factor_solve_residual(B, T, d, jnp.float64)
+    assert rel < 1e-12
+    D, O, b = chip_smoke.spd_blocks(B, T, d)
+    for i in (0, B - 1):
+        S = np.zeros((T * d, T * d))
+        for t in range(T):
+            S[t * d : (t + 1) * d, t * d : (t + 1) * d] = D[i, t]
+        for t in range(T - 1):
+            S[(t + 1) * d : (t + 2) * d, t * d : (t + 1) * d] = O[i, t]
+            S[t * d : (t + 1) * d, (t + 1) * d : (t + 2) * d] = O[i, t].T
+        want = np.linalg.solve(S, b[i].reshape(-1))
+        np.testing.assert_allclose(x[i].reshape(-1), want, atol=1e-10)
+
+
+@pytest.mark.parametrize("T, d", [(1, 32), (8, 54)])
+def test_batched_nonpd_lane_is_nan(T, d):
+    """Under vmap, a non-PD block in one lane makes that lane's factor
+    non-finite (the inertia ladder's signal) and leaves the others
+    finite."""
+    assert chip_smoke.nonpd_lane_is_flagged(16, T, d, jnp.float64)

@@ -74,7 +74,7 @@ def _periodicity_problem(horizon=11):
 
 @pytest.mark.parametrize("method", ["riccati", "cr"])
 def test_general_equality_border_matches_schur(method):
-    """The low-rank Schur border (VERDICT item 1) must reproduce the dense
+    """The low-rank Schur border must reproduce the dense
     Schur path exactly: same iterate sequence, same solution."""
     prob = _periodicity_problem()
     kw = {k: v for k, v in prob.items() if k not in ("state_guess", "action_guess")}
